@@ -1,16 +1,18 @@
-# bgn_tpu build targets (analog of the reference Makefile:1-12)
+# bgn_jax build targets (analog of the reference Makefile:1-12)
 
-.PHONY: all native test bench demo clean
+.PHONY: all native test bench smoke demo clean
 
 all: native
 
-native: csrc/libbgnhost.so
+# the library is also built at first use (bgn_jax/utils/native.py)
+native: build/libbgnhost.so
 
-csrc/libbgnhost.so: csrc/hostmath_accel.cpp
+build/libbgnhost.so: csrc/hostmath_accel.cpp
+	mkdir -p build
 	g++ -O2 -fPIC -shared -std=c++17 -o $@ $<
 
 test:
-	python -m pytest tests/ -q
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q
 
 # One pytest process per file: immune to the XLA:CPU long-process
 # compiler instability (see tests/conftest.py).
@@ -22,8 +24,11 @@ test-isolated:
 bench:
 	python bench.py
 
+smoke:
+	python chip_smoke.py
+
 demo:
-	python -m bgn_tpu.cli
+	python -m bgn_jax.cli
 
 clean:
-	rm -f csrc/libbgnhost.so
+	rm -rf build

@@ -1,7 +1,7 @@
-// Native host-side number theory for bgn_tpu key generation.
+// Native host-side number theory for bgn_jax key generation.
 //
-// This is the TPU-build analog of the role PBC's C parameter generator
-// plays for the reference (pbc_param_init_a1_gen / GenerateA1, used at
+// This plays the role of PBC's C parameter generator
+// for the reference (pbc_param_init_a1_gen / GenerateA1, used at
 // reference bgn.go:93): the cofactor search "find the smallest l = 4k with
 // p = l*n - 1 prime" is the hot loop of keygen, and primality testing
 // dominates it.  Implemented as a fixed-width bignum (64-bit limbs,
@@ -10,10 +10,10 @@
 // single bignum multiplication.
 //
 // Exposed as a tiny extern "C" byte-array API consumed via ctypes
-// (bgn_tpu/utils/native.py), with a pure-Python fallback
+// (bgn_jax/utils/native.py), with a pure-Python fallback
 // (hostmath.find_cofactor) when the shared object is absent.
 //
-// Build: make native   (produces csrc/libbgnhost.so)
+// Built at first use, or by `make native` (produces build/libbgnhost.so).
 
 #include <cstdint>
 #include <cstring>

@@ -1,7 +1,7 @@
 """Surgical jit-cache clearing for mode-flip tests.
 
-The RNS/Pallas parity tests monkeypatch pairing._RNS_MODE /
-rns_pairing._PALLAS_MODE, which jitted kernels read at TRACE time -- a
+The RNS/limb parity tests monkeypatch pairing._RNS_MODE, which jitted
+kernels read at TRACE time -- a
 cached trace bakes the mode in, so a flip must drop the affected caches.
 `jax.clear_caches()` does that by dropping EVERYTHING, forcing every
 later test in the worker process to re-trace the whole kernel set
@@ -12,12 +12,12 @@ globals, leaving every other warm trace alive."""
 
 
 def clear_mode_kernels():
-    from bgn_tpu import gadgets as g
-    from bgn_tpu import polyct
-    from bgn_tpu import scheme as s
-    from bgn_tpu.models import aggregation as agg
-    from bgn_tpu.models import encrypted_dot as ed
-    from bgn_tpu.parallel import sharded as sh
+    from bgn_jax import gadgets as g
+    from bgn_jax import polyct
+    from bgn_jax import scheme as s
+    from bgn_jax.models import aggregation as agg
+    from bgn_jax.models import encrypted_dot as ed
+    from bgn_jax.parallel import sharded as sh
 
     fns = [
         s._encrypt_kernel, s._encrypt_det_kernel,

@@ -1,10 +1,10 @@
-"""BGNParams unified configuration (bgn_tpu/config.py; SURVEY.md §5)."""
+"""BGNParams unified configuration (bgn_jax/config.py; SURVEY.md §5)."""
 
 import random
 
 import pytest
 
-from bgn_tpu.config import BGNParams
+from bgn_jax.config import BGNParams
 
 
 def test_defaults_are_reference_test_constants():
@@ -16,7 +16,7 @@ def test_defaults_are_reference_test_constants():
 
 
 def test_dict_roundtrip_and_unknown_fields():
-    p = BGNParams(key_bits=64, msg_space=101, rns_pallas="loop")
+    p = BGNParams(key_bits=64, msg_space=101, rns_miller="1")
     assert BGNParams.from_dict(p.to_dict()) == p
     with pytest.raises(ValueError, match="unknown BGNParams"):
         BGNParams.from_dict({"key_bits": 64, "bogus": 1})
@@ -42,17 +42,17 @@ def test_keygen_and_mesh():
 
 
 def test_env_var_overrides_field(monkeypatch):
-    from bgn_tpu.ops import pairing as pairing_mod
+    from bgn_jax.ops import pairing as pairing_mod
 
     before = pairing_mod._RNS_MODE
     try:
         # no env var: the field wins
-        monkeypatch.delenv("BGN_TPU_RNS_MILLER", raising=False)
+        monkeypatch.delenv("BGN_RNS_MILLER", raising=False)
         BGNParams(key_bits=64, msg_space=101,
                   rns_miller="0").apply_kernel_modes()
         assert pairing_mod._RNS_MODE == "0"
         # env var set: it wins over the field
-        monkeypatch.setenv("BGN_TPU_RNS_MILLER", "1")
+        monkeypatch.setenv("BGN_RNS_MILLER", "1")
         pairing_mod._RNS_MODE = "1"
         BGNParams(key_bits=64, msg_space=101,
                   rns_miller="0").apply_kernel_modes()

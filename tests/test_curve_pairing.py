@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bgn_tpu import hostmath as hm
-from bgn_tpu.fieldcore import limbs as lb
-from bgn_tpu.fieldcore import montgomery as mg
-from bgn_tpu.ops import curve as cv
-from bgn_tpu.ops import fp2, pairing
-from bgn_tpu.utils import convert
+from bgn_jax import hostmath as hm
+from bgn_jax.fieldcore import limbs as lb
+from bgn_jax.fieldcore import montgomery as mg
+from bgn_jax.ops import curve as cv
+from bgn_jax.ops import fp2, pairing
+from bgn_jax.utils import convert
 
 KEY_BITS = 160
 

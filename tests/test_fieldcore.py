@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bgn_tpu.fieldcore import limbs as lb
-from bgn_tpu.fieldcore import montgomery as mg
-from bgn_tpu import hostmath as hm
+from bgn_jax.fieldcore import limbs as lb
+from bgn_jax.fieldcore import montgomery as mg
+from bgn_jax import hostmath as hm
 
 RNG = random.Random(1234)
 

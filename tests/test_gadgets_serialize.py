@@ -6,8 +6,8 @@ import random
 import numpy as np
 import pytest
 
-from bgn_tpu import encoding, gadgets, polyct, scheme, serialize
-from bgn_tpu.utils import convert
+from bgn_jax import encoding, gadgets, polyct, scheme, serialize
+from bgn_jax.utils import convert
 
 KEY_BITS = 64   # shared_keypair width (see conftest r5 note)
 MSG_SPACE = 1021
@@ -82,7 +82,7 @@ def test_device_sha256_matches_hashlib():
     random messages of the gadget's static shapes."""
     import hashlib
 
-    from bgn_tpu.ops.sha256 import pad_words, sha256_words
+    from bgn_jax.ops.sha256 import pad_words, sha256_words
 
     rng = random.Random(99)
     for nbytes in (64, 96, 272):          # 8L for L = 8, 12, 34
@@ -117,7 +117,7 @@ def test_pok_rns_matches_limb(monkeypatch, keypair):
     """The RNS verify kernel must agree with the complete limb kernel on
     accept AND reject (VERDICT r4 weak #5: verify was the last limb-only
     hot op)."""
-    from bgn_tpu.ops import pairing as pairing_mod
+    from bgn_jax.ops import pairing as pairing_mod
 
     pk, sk, rng = keypair
     vs = [rng.randrange(pk.n) for _ in range(4)]
@@ -139,7 +139,7 @@ def test_pok_rns_matches_limb(monkeypatch, keypair):
 def test_pok_rns_degenerate_falls_back(monkeypatch, keypair):
     """A proof whose DL is 0 (P^0 = O) must flag the RNS lane suspicious
     and re-verify on the complete limb path, not mis-verify."""
-    from bgn_tpu.ops import pairing as pairing_mod
+    from bgn_jax.ops import pairing as pairing_mod
 
     pk, sk, rng = keypair
     v, r = rng.randrange(pk.n), rng.randrange(pk.n)

@@ -7,8 +7,8 @@ import random
 
 import pytest
 
-from bgn_tpu import hostmath as hm
-from bgn_tpu.utils import native
+from bgn_jax import hostmath as hm
+from bgn_jax.utils import native
 
 RNG = random.Random(4242)
 

@@ -16,9 +16,9 @@ import random
 import numpy as np
 import pytest
 
-from bgn_tpu import hostmath as hm
-from bgn_tpu import scheme
-from bgn_tpu.interop import (ciphertext_from_gob, ciphertext_to_gob,
+from bgn_jax import hostmath as hm
+from bgn_jax import scheme
+from bgn_jax.interop import (ciphertext_from_gob, ciphertext_to_gob,
                              conformance, gob, pbc,
                              poly_ciphertext_from_gob, poly_ciphertext_to_gob,
                              public_key_from_gob, public_key_to_gob,
@@ -155,7 +155,7 @@ def test_public_key_gob_roundtrip(keypair):
     ms, rs = [1, 5, 9], [11, 22, 33]
     a = pk.encrypt_with_randomness(ms, rs)
     b = pk2.encrypt_with_randomness(ms, rs)
-    from bgn_tpu.interop.reference import _element_bytes
+    from bgn_jax.interop.reference import _element_bytes
     assert _element_bytes(pk, a) == _element_bytes(pk2, b)
 
 
@@ -181,7 +181,7 @@ def test_ciphertext_gob_roundtrip(keypair, shared_tables64):
 
 def test_poly_ciphertext_gob_roundtrip(keypair, shared_tables64):
     pk, sk = keypair
-    from bgn_tpu import encoding, polyct
+    from bgn_jax import encoding, polyct
     tables = shared_tables64
     pt = polyct.encrypt_poly(pk, encoding.new_poly_plaintext(pk, 38.0),
                              rng=random.Random(4))

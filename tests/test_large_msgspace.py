@@ -4,10 +4,10 @@ The reference's BSGS caps msgSpace at int64 and builds its tables with one
 group op per entry under a sync.Map (gsbs.go:17-51); here the baby-step
 table build is a Jacobian chain with ONE batched inversion
 (ops/bsgs._ec_multiples) and the giant-step scan is a device scan, sharded
-over the 8-virtual-device mesh for the multi-chip path.
+over the 8-virtual-device mesh for the multi-device path.
 
 Slow (the bound-3163 giant-step scan runs ~3k device steps on CPU);
-skipped unless BGN_TPU_RUN_SLOW=1.
+skipped unless BGN_RUN_SLOW=1.
 """
 
 import random
@@ -15,7 +15,7 @@ import time
 
 import pytest
 
-from bgn_tpu import scheme
+from bgn_jax import scheme
 
 pytestmark = pytest.mark.slow
 
@@ -56,8 +56,8 @@ def test_decrypt_sharded_large_space(keypair):
     """Giant-step-sharded decrypt over the 8-device mesh: each device
     scans ~bound/8 giant steps; first-hit reduced via pmin collectives.
     Values must match the single-device path exactly."""
-    from bgn_tpu.parallel import mesh as mesh_mod
-    from bgn_tpu.parallel import sharded as sh
+    from bgn_jax.parallel import mesh as mesh_mod
+    from bgn_jax.parallel import sharded as sh
 
     pk, sk, tables, _ = keypair
     mesh = mesh_mod.make_mesh(8)

@@ -1,7 +1,7 @@
 """1024-bit end-to-end test (BASELINE.json config 5's key size).
 
 Slow on the CPU backend (compiles the full 1024-bit kernel graphs);
-skipped unless BGN_TPU_RUN_SLOW=1 (see conftest.py).  The fast wide-path
+skipped unless BGN_RUN_SLOW=1 (see conftest.py).  The fast wide-path
 field arithmetic coverage at this size lives in test_rns.py
 (test_rns_mul_exact[800/2060]).
 """
@@ -10,7 +10,7 @@ import random
 
 import pytest
 
-from bgn_tpu import scheme
+from bgn_jax import scheme
 
 pytestmark = pytest.mark.slow
 

@@ -2,8 +2,8 @@
 
 import pytest
 
-from bgn_tpu import scheme
-from bgn_tpu.models import aggregation, encrypted_dot
+from bgn_jax import scheme
+from bgn_jax.models import aggregation, encrypted_dot
 
 KEY_BITS = 64   # shared_keypair width (see conftest r5 note)
 MSG_SPACE = 1021
@@ -73,7 +73,7 @@ def test_encrypted_dot_rns_matches_xla(monkeypatch, shared_keypair64,
     """Fused dot on the RNS path (forced on CPU) == XLA limb path."""
     import numpy as np
 
-    from bgn_tpu.ops import pairing as pairing_mod
+    from bgn_jax.ops import pairing as pairing_mod
 
     pk, sk = shared_keypair64
     x = [1, 2, 3, 4]

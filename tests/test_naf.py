@@ -11,10 +11,8 @@ import random
 import numpy as np
 import pytest
 
-from _kernels import clear_mode_kernels
-
-from bgn_tpu import scheme
-from bgn_tpu.fieldcore import limbs as lb
+from bgn_jax import scheme
+from bgn_jax.fieldcore import limbs as lb
 
 
 @pytest.fixture()
@@ -61,35 +59,27 @@ def test_exp_digits_prefers_naf_and_strips_leading_zeros():
     assert val == 0b1011
 
 
-@pytest.mark.parametrize("mode", ["0", "loop-interpret"])
-def test_pairing_naf_matches_binary(mode, monkeypatch, keyrng):
-    from bgn_tpu.ops import rns_pairing as rp
+def test_pairing_naf_matches_binary(keyrng):
+    from bgn_jax.ops import rns_pairing as rp
 
     (pk, sk), rng = keyrng
     dev = pk.dev
     a = pk.encrypt([0, 1, 2, 7, 100, 55], rng=rng).data
     b = pk.encrypt([1, 3, 5, 2, 99, 4], rng=rng).data
-    monkeypatch.setattr(rp, "_PALLAS_MODE", "0")
     z_bits = rp.pairing_rns(dev.ctx, dev.rns, a, b, dev.n_bits, dev.l_bits)
-    monkeypatch.setattr(rp, "_PALLAS_MODE", mode)
-    clear_mode_kernels()
     z_naf = rp.pairing_rns(dev.ctx, dev.rns, a, b, dev.n_naf, dev.l_bits)
     np.testing.assert_array_equal(np.asarray(z_bits), np.asarray(z_naf))
 
 
-@pytest.mark.parametrize("mode", ["0", "loop-interpret"])
-def test_ladders_naf_match_binary(mode, monkeypatch, keyrng):
-    from bgn_tpu.ops import curve as cv
-    from bgn_tpu.ops import rns_pairing as rp
+def test_ladders_naf_match_binary(keyrng):
+    from bgn_jax.ops import curve as cv
+    from bgn_jax.ops import rns_pairing as rp
 
     (pk, sk), rng = keyrng
     dev = pk.dev
     a = pk.encrypt([0, 1, 2, 7, 100, 55], rng=rng).data
-    monkeypatch.setattr(rp, "_PALLAS_MODE", "0")
     ref = cv.normalize(dev.ctx, cv.JacPoint(
         *rp.scalar_mul_rns(dev.ctx, dev.rns, a, sk.q1_bits)))
-    monkeypatch.setattr(rp, "_PALLAS_MODE", mode)
-    clear_mode_kernels()
     got = cv.normalize(dev.ctx, cv.JacPoint(
         *rp.scalar_mul_rns(dev.ctx, dev.rns, a, sk.q1_naf)))
     np.testing.assert_array_equal(np.asarray(ref.x), np.asarray(got.x))
@@ -100,10 +90,7 @@ def test_ladders_naf_match_binary(mode, monkeypatch, keyrng):
     # take inverses by conjugation
     z = pk.mult(pk.encrypt([3, 5], rng=rng),
                 pk.encrypt([7, 2], rng=rng)).data
-    monkeypatch.setattr(rp, "_PALLAS_MODE", "0")
     w_ref = rp.fp2_pow_rns(dev.ctx, dev.rns, z, sk.q1_bits)
-    monkeypatch.setattr(rp, "_PALLAS_MODE", mode)
-    clear_mode_kernels()
     w_naf = rp.fp2_pow_rns(dev.ctx, dev.rns, z, sk.q1_naf, unitary=True)
     np.testing.assert_array_equal(np.asarray(w_ref), np.asarray(w_naf))
 

@@ -10,8 +10,8 @@ fixtures (tools/dump_reference.go) remain the final gate
 
 import random
 
-from bgn_tpu import hostmath as hm
-from bgn_tpu import hostmath2 as hm2
+from bgn_jax import hostmath as hm
+from bgn_jax import hostmath2 as hm2
 
 
 def _random_subgroup_point(params, rng):

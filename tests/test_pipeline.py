@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from bgn_tpu import scheme
-from bgn_tpu.ops import rns_pairing as rp
-from bgn_tpu.parallel import pipeline as pp
+from bgn_jax import scheme
+from bgn_jax.ops import rns_pairing as rp
+from bgn_jax.parallel import pipeline as pp
 
 
 @pytest.fixture(scope="module")

@@ -4,7 +4,7 @@ import random
 
 import pytest
 
-from bgn_tpu import encoding, polyct, scheme
+from bgn_jax import encoding, polyct, scheme
 
 KEY_BITS = 64   # shared_keypair width (see conftest r5 note)
 MSG_SPACE = 1021
@@ -143,8 +143,8 @@ def test_rationalize_roundtrip(keypair):
 def _slice_poly(pct, b):
     """Extract poly b from a (degree, B) batch as a plain (degree,)
     PolyCiphertext (test-only helper)."""
-    from bgn_tpu.ops import curve as cv
-    from bgn_tpu.scheme import Ciphertext
+    from bgn_jax.ops import curve as cv
+    from bgn_jax.scheme import Ciphertext
 
     if pct.ct.level2:
         ct = Ciphertext(pct.ct.data[:, :, :, b], True)
@@ -234,7 +234,7 @@ def test_poly_accumulators_degree32(keypair):
     7: trace size O(1) in degree), against per-diagonal sums."""
     import numpy as np
 
-    from bgn_tpu.scheme import Ciphertext
+    from bgn_jax.scheme import Ciphertext
 
     pk, sk, tables = keypair
     d1, d2 = 32, 2

@@ -7,7 +7,7 @@ import random
 
 import pytest
 
-from bgn_tpu import encoding, polyct, scheme
+from bgn_jax import encoding, polyct, scheme
 
 KEYBITS = 512
 POLYBASE = 3

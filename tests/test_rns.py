@@ -1,4 +1,4 @@
-"""RNS/MXU Montgomery arithmetic (fieldcore/rns.py) against exact ints,
+"""RNS Montgomery arithmetic (fieldcore/rns.py) against exact ints,
 and the RNS Miller loop (ops/rns_pairing.py) against the XLA reference
 path -- they must agree bit-for-bit after domain conversion.
 """
@@ -10,9 +10,9 @@ import pytest
 
 from _kernels import clear_mode_kernels
 
-from bgn_tpu.fieldcore import limbs as lb
-from bgn_tpu.fieldcore import montgomery as mg
-from bgn_tpu.fieldcore import rns as rn
+from bgn_jax.fieldcore import limbs as lb
+from bgn_jax.fieldcore import montgomery as mg
+from bgn_jax.fieldcore import rns as rn
 
 
 def _rand_prime(bits, rng):
@@ -117,8 +117,8 @@ def test_rns_bound_growth_and_domain():
 def test_rns_miller_matches_xla(shared_keypair64):
     """The RNS Miller loop agrees bit-for-bit with the XLA reference path
     (same pairing, different field representation)."""
-    from bgn_tpu.ops import pairing as pairing_mod
-    from bgn_tpu.ops import rns_pairing
+    from bgn_jax.ops import pairing as pairing_mod
+    from bgn_jax.ops import rns_pairing
 
     rng = random.Random(5)
     pk, _sk = shared_keypair64
@@ -145,7 +145,7 @@ def test_rns_scheme_end_to_end(monkeypatch, shared_keypair64,
                                shared_tables64):
     """Force the RNS pairing inside the scheme: EMult + decrypt round trip."""
     monkeypatch.setattr(
-        __import__("bgn_tpu.ops.pairing", fromlist=["x"]), "_RNS_MODE", "1")
+        __import__("bgn_jax.ops.pairing", fromlist=["x"]), "_RNS_MODE", "1")
 
     rng = random.Random(21)
     pk, sk = shared_keypair64
@@ -165,7 +165,7 @@ def test_rns_encrypt_matches_limb(monkeypatch, shared_keypair64):
     bit-identical ciphertexts to the limb path, incl. m=0 / r=0 lanes
     (identity handling is flag-based)."""
 
-    from bgn_tpu.ops import pairing as pairing_mod
+    from bgn_jax.ops import pairing as pairing_mod
 
     pk, _sk = shared_keypair64
     ms = [0, 1, -7, 100, 55, 13, 0, 2]
@@ -193,7 +193,7 @@ def test_rns_add_complete_matches_limb(monkeypatch, shared_keypair64):
     is bit-identical to the complete limb madd on every edge: generic
     a+b, a+a (doubling), a+(-a) (identity), O+b, a+O, O+O."""
 
-    from bgn_tpu.ops import pairing as pairing_mod
+    from bgn_jax.ops import pairing as pairing_mod
 
     pk, _sk = shared_keypair64
     rng = random.Random(77)
@@ -221,55 +221,12 @@ def test_rns_add_complete_matches_limb(monkeypatch, shared_keypair64):
                                       np.asarray(v.data.inf))
 
 
-def test_rns_loop_kernels_match_xla(monkeypatch, shared_keypair64):
-    """Whole-loop Pallas kernels (Miller loop, window ladder, pow loops;
-    BGN_TPU_RNS_PALLAS=loop) agree bit-for-bit with the XLA step path,
-    via the interpreter on CPU (pallas_rns.py whole-loop section)."""
-    import jax
-    import jax.numpy as jnp
-
-    from bgn_tpu.ops import rns_pairing as rp
-
-    rng = random.Random(5)
-    pk, _sk = shared_keypair64
-    dev = pk.dev
-    ms = [0, 1, 2, 7, 100, 55]
-    a = pk.encrypt(ms, rng=rng).data
-    b = pk.encrypt([1, 3, 5, 2, 99, 4], rng=rng).data
-
-    # full pairing: Miller whole-loop + F_p/F_p^2 pow loops
-    monkeypatch.setattr(rp, "_PALLAS_MODE", "0")
-    z_ref = rp.pairing_rns(dev.ctx, dev.rns, a, b, dev.n_bits, dev.l_bits)
-    clear_mode_kernels()
-    monkeypatch.setattr(rp, "_PALLAS_MODE", "loop-interpret")
-    z_loop = rp.pairing_rns(dev.ctx, dev.rns, a, b, dev.n_bits, dev.l_bits)
-    np.testing.assert_array_equal(np.asarray(z_ref), np.asarray(z_loop))
-
-    # fixed-base window ladder (the encrypt core), incl. e = 0 and
-    # identity-first-window lanes
-    J, R = dev.p_win.x.shape[1], dev.p_win.x.shape[2]
-    drng = np.random.default_rng(9)
-    digits = drng.integers(0, R, size=(J, 6), dtype=np.uint32)
-    digits[:, 3] = 0
-    digits[0, 2] = 0
-    dj = jnp.asarray(digits)
-    monkeypatch.setattr(rp, "_PALLAS_MODE", "0")
-    refw = rp.fixed_base_mul_rns(dev.ctx, dev.rns, dev.p_win_rns,
-                                 dev.p_win.inf, dj)
-    monkeypatch.setattr(rp, "_PALLAS_MODE", "loop-interpret")
-    gotw = rp.fixed_base_mul_rns(dev.ctx, dev.rns, dev.p_win_rns,
-                                 dev.p_win.inf, dj)
-    clear_mode_kernels()
-    for u, v in zip(refw, gotw):
-        np.testing.assert_array_equal(np.asarray(u), np.asarray(v))
-
-
 def test_rns_decrypt_matches_limb(monkeypatch, shared_keypair64,
                                   shared_tables64):
     """RNS decrypt ladders (scalar_mul_rns / fp2_pow_rns) produce the
     same decrypts as the limb path at both levels, incl. zero/negatives."""
 
-    from bgn_tpu.ops import pairing as pairing_mod
+    from bgn_jax.ops import pairing as pairing_mod
 
     rng = random.Random(31)
     pk, sk = shared_keypair64
@@ -302,7 +259,7 @@ def test_rns_mult_const_matches_limb(monkeypatch, shared_keypair64,
     (order multiples), k = n - 1, and identity-base lanes (VERDICT r3
     item 3; reference MultConst semantics bgn.go:253-291)."""
 
-    from bgn_tpu.ops import pairing as pairing_mod
+    from bgn_jax.ops import pairing as pairing_mod
 
     rng = random.Random(47)
     pk, sk = shared_keypair64
@@ -351,7 +308,7 @@ def test_rns_mult_const_wide_exponent_falls_back(monkeypatch,
     (2^nbits < min(q1, q2)) and must route through the complete limb
     ladder, still giving correct results."""
 
-    from bgn_tpu.ops import pairing as pairing_mod
+    from bgn_jax.ops import pairing as pairing_mod
 
     rng = random.Random(53)
     pk, sk = shared_keypair64
@@ -366,33 +323,29 @@ def test_rns_mult_const_wide_exponent_falls_back(monkeypatch,
     assert list(got) == [-2, -3, -5]
 
 
-def test_fused_dual_ladder_encrypt_matches_split(monkeypatch,
-                                                 shared_keypair64):
-    """The fused dual-ladder encrypt kernel (dual_ladder_pallas: both
-    window chains + the g +- h combine in one kernel) produces
-    bit-identical ciphertexts to the split XLA path, incl. m = 0, r = 0,
-    m < 0 and (m, r) = (0, 0) identity lanes."""
-
-    from bgn_tpu.ops import pairing as pairing_mod
-    from bgn_tpu.ops import rns_pairing as rp
+def test_rns_rerandomize_matches_limb(monkeypatch, shared_keypair64):
+    """L1/L2 re-randomization (pt * Q^r, z * e(Q,Q)^r) on the RNS path is
+    bit-identical to the limb path, incl. identity points and r = 0."""
+    from bgn_jax import scheme as s
+    from bgn_jax.ops import pairing as pairing_mod
 
     pk, _sk = shared_keypair64
-    ms = [0, 1, -7, 100, 55, -13, 0, 2]
-    rs = [5, 0, 12345, 1, 999999, 424242, 0, pk.n - 1]
-    ms[6], rs[6] = 0, 0      # identity lane
+    ms = [0, 1, 5, 0, 9, 13, 2, 7]              # m = 0: identity points
+    rs = [0, 1, 12345, 0, pk.n - 1, 77, 5, 3]
+    ct = pk.encrypt_deterministic(ms)
+    l2 = pk.make_l2(ct)
+    r_digits, _ = s._signed_digits(rs, pk.n)
+    r_bits, _ = s._signed_bits(rs, pk.n)
+    a1 = s._rerand_l1_kernel(pk.dev, ct.data, r_digits)
+    w1 = s._rerand_l2_kernel(pk.dev, l2.data, r_bits)
 
+    clear_mode_kernels()
     monkeypatch.setattr(pairing_mod, "_RNS_MODE", "1")
-    monkeypatch.setattr(rp, "_PALLAS_MODE", "0")
-    clear_mode_kernels()
-    a1 = pk.encrypt_with_randomness(ms, rs)
-    clear_mode_kernels()
-    monkeypatch.setattr(rp, "_PALLAS_MODE", "loop-interpret")
-    a2 = pk.encrypt_with_randomness(ms, rs)
-    clear_mode_kernels()
-
-    np.testing.assert_array_equal(np.asarray(a1.data.x),
-                                  np.asarray(a2.data.x))
-    np.testing.assert_array_equal(np.asarray(a1.data.y),
-                                  np.asarray(a2.data.y))
-    np.testing.assert_array_equal(np.asarray(a1.data.inf),
-                                  np.asarray(a2.data.inf))
+    try:
+        a2 = s._rerand_l1_kernel(pk.dev, ct.data, r_digits)
+        w2 = s._rerand_l2_kernel(pk.dev, l2.data, r_bits)
+    finally:
+        clear_mode_kernels()
+    for u, v in zip(a1, a2):
+        np.testing.assert_array_equal(np.asarray(u), np.asarray(v))
+    np.testing.assert_array_equal(np.asarray(w1), np.asarray(w2))

@@ -9,9 +9,9 @@ import random
 import numpy as np
 import pytest
 
-from bgn_tpu import hostmath as hm
-from bgn_tpu import scheme
-from bgn_tpu.utils import convert
+from bgn_jax import hostmath as hm
+from bgn_jax import scheme
+from bgn_jax.utils import convert
 
 KEY_BITS = 64   # shared_keypair width (see conftest r5 note)
 MSG_SPACE = 1021
@@ -206,7 +206,7 @@ def test_plaintext_wrapper_and_string_repr(keypair):
     """Plaintext/NewPlaintext (plaintext.go:21-30) and the String()
     analogs (ciphertext.go:60-73): canonical hex, one element per line,
     identical for equal deterministic ciphertexts."""
-    from bgn_tpu import encoding, polyct
+    from bgn_jax import encoding, polyct
 
     pk, sk, tables = keypair
     pt = encoding.new_plaintext(pk, 42)

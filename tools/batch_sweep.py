@@ -1,10 +1,7 @@
 """Throughput vs batch size for the hot ops (EMult pairing, Encrypt,
-Decrypt) on the live chip.  Picks the knee of the curve so bench.py's
-BATCH constant is evidence-based, not folklore.
-
-Run on an OTHERWISE-IDLE host: this machine has 2 CPU cores and the
-dispatch thread starves under any concurrent load, silently deflating
-every measured rate (round-4 note in TODO.md).
+Decrypt) on the GPU.  Picks the knee of the curve so bench.py's BATCH
+constant is evidence-based, not folklore.  Run it alone on the card: the
+dispatch thread starves under concurrent host load.
 
 Usage: python tools/batch_sweep.py [--bits 512] [--batches 1024,2048,...]
 """
@@ -15,15 +12,12 @@ import random
 import sys
 
 import jax
-import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if not os.environ.get("BGN_TPU_NO_CACHE"):
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from bgn_jax.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():
@@ -33,11 +27,9 @@ def main():
     ap.add_argument("--iters", type=int, default=6)
     args = ap.parse_args()
 
-    from bench import timed  # autoranged >=3s windows (ADVICE r4: the
-    #   old single-window rate() here was the exact sub-second methodology
-    #   PERF.md documents as +-4x jittery; the knee choice was noise-prone)
-    from bgn_tpu.config import BGNParams
-    from bgn_tpu.scheme import _decrypt_l1_kernel, _mult_kernel
+    from bench import _same, timed  # autoranged >=3s windows
+    from bgn_jax.config import BGNParams
+    from bgn_jax.scheme import _decrypt_l1_kernel, _mult_kernel
 
     rng = random.Random(1234)
     pk, sk = BGNParams(key_bits=args.bits, msg_space=1021).keygen(
@@ -48,21 +40,18 @@ def main():
         ms = [rng.randrange(300) for _ in range(B)]
         a = pk.encrypt(ms, rng=rng)
         b = pk.encrypt(ms, rng=rng)
-        np.asarray(a.data.x[0]).sum()
+        jax.block_until_ready((a, b))
 
-        def rate(fn, materialize, iters=args.iters):
-            return timed(fn, materialize, iters, B * iters)
+        def rate(fn, iters=args.iters):
+            return timed(fn, _same, iters, B * iters)
 
         r = {}
-        r["encrypt"] = rate(lambda: pk.encrypt(ms, rng=rng),
-                            lambda c: np.asarray(c.data.x[0]).sum())
-        r["mult"] = rate(lambda: _mult_kernel(pk.dev, a.data, b.data),
-                         lambda o: np.asarray(o[:, :, 0]).sum())
+        r["encrypt"] = rate(lambda: pk.encrypt(ms, rng=rng))
+        r["mult"] = rate(lambda: _mult_kernel(pk.dev, a.data, b.data))
         r["decrypt"] = rate(
             lambda: _decrypt_l1_kernel(pk.dev, tables, sk.q1_bits, a.data,
-                                       sk.q1_naf)[1],
-            lambda o: np.asarray(o).sum())
-        out[B] = {k: round(v, 1) for k, v in r.items()}
+                                       sk.q1_naf)[1])
+        out[B] = r
         print(f"batch {B}: " + json.dumps(out[B]), file=sys.stderr,
               flush=True)
     print(json.dumps(out))

@@ -1,9 +1,8 @@
 """Stage timing for the two decrypt paths (L1 vs L2): ladder vs scan.
 
-DecryptL2 measures ~30k/s vs Decrypt(L1) ~54k/s at batch 2048 even though
-the GT ladder does ~4x fewer r_muls per digit than the Jacobian ladder --
-this probe splits each path into its ladder and BSGS-scan halves to locate
-the gap.  Run on an otherwise-idle host (see TODO.md operational notes).
+The GT ladder does ~4x fewer r_muls per digit than the Jacobian ladder;
+this probe splits each decrypt path into its ladder and BSGS-scan halves
+to show where each one's time goes.  Run it alone on the card.
 """
 import os
 import random
@@ -11,34 +10,32 @@ import sys
 import time
 
 import jax
-import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if not os.environ.get("BGN_TPU_NO_CACHE"):
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from bgn_jax.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
-def rate(fn, mat, iters=8, min_window=3.0):
-    mat(fn())
-    t0 = time.time()
+def rate(fn, iters=8, min_window=3.0):
+    """Calls per second over a window of at least min_window seconds."""
+    jax.block_until_ready(fn())
+    t0 = time.perf_counter()
     done = 0
-    while time.time() - t0 < min_window:
+    while time.perf_counter() - t0 < min_window:
         out = None
         for _ in range(iters):
             out = fn()
-        mat(out)
+        jax.block_until_ready(out)
         done += iters
-    return done / (time.time() - t0)
+    return done / (time.perf_counter() - t0)
 
 
 def main():
-    from bgn_tpu.config import BGNParams
-    from bgn_tpu.ops import bsgs as bsgs_mod
-    from bgn_tpu.ops import rns_pairing as rp
+    from bgn_jax.config import BGNParams
+    from bgn_jax.ops import bsgs as bsgs_mod
+    from bgn_jax.ops import rns_pairing as rp
 
     B = int(os.environ.get("B", "2048"))
     rng = random.Random(1234)
@@ -50,11 +47,11 @@ def main():
     ms = [rng.randrange(300) for _ in range(B)]
     a = pk.encrypt(ms, rng=rng)
     l2 = pk.make_l2(a)
-    np.asarray(a.data.x[0]).sum()
+    jax.block_until_ready(a)
 
     lad1 = jax.jit(lambda pt: rp.scalar_mul_rns(ctx, rns, pt, sk.q1_naf,
                                                 raw=True))
-    r1 = rate(lambda: lad1(a.data), lambda o: np.asarray(o[0].v).sum())
+    r1 = rate(lambda: lad1(a.data)[0].v)
     print(f"L1 ladder (scalar_mul_rns, q1_naf): {B * r1:.0f} elem/s",
           file=sys.stderr, flush=True)
 
@@ -62,21 +59,20 @@ def main():
     scan1 = jax.jit(lambda x, y, z, i: bsgs_mod.bsgs_g1_rns(
         ctx, rns, tables, x, y, z, i))
     inf = a.data.inf.reshape(-1)
-    r2 = rate(lambda: scan1(Xr, Yr, Zr, inf)[1],
-              lambda o: np.asarray(o).sum())
+    r2 = rate(lambda: scan1(Xr, Yr, Zr, inf)[1])
     print(f"L1 scan (bsgs_g1_rns): {B * r2:.0f} elem/s",
           file=sys.stderr, flush=True)
 
     lad2 = jax.jit(lambda z: rp.fp2_pow_rns(ctx, rns, z, sk.q1_naf,
                                             unitary=True, raw=True))
-    r3 = rate(lambda: lad2(l2.data), lambda o: np.asarray(o[0].v).sum())
+    r3 = rate(lambda: lad2(l2.data)[0].v)
     print(f"L2 ladder (fp2_pow_rns, q1_naf): {B * r3:.0f} elem/s",
           file=sys.stderr, flush=True)
 
     zr, zi = lad2(l2.data)
     scan2 = jax.jit(lambda r, i: bsgs_mod.bsgs_gt_rns(ctx, rns, tables,
                                                       r, i))
-    r4 = rate(lambda: scan2(zr, zi)[1], lambda o: np.asarray(o).sum())
+    r4 = rate(lambda: scan2(zr, zi)[1])
     print(f"L2 scan (bsgs_gt_rns): {B * r4:.0f} elem/s",
           file=sys.stderr, flush=True)
 

@@ -12,7 +12,7 @@
 //
 //	python -m pytest tests/test_interop.py -q
 //
-// The Python side (bgn_tpu/interop/reference.py) imports the key material,
+// The Python side (bgn_jax/interop/reference.py) imports the key material,
 // re-encrypts every vector with the same randomness, and asserts identical
 // pbc element bytes — the bit-exact conformance channel of SURVEY.md §4.
 //
