@@ -362,15 +362,17 @@ def main():
 
     dev = require_gpu()
     enable_compile_cache()
+    # one card unless --full, whose DP section spans every visible card
     device = {"platform": dev.platform, "kind": dev.device_kind,
-              "count": len(jax.devices()), "nvidia_smi": gpu_name_power()}
+              "count": len(jax.devices()) if args.full else 1,
+              "nvidia_smi": gpu_name_power()}
     log(f"device: {device}")
     t0 = time.time()
     rng = random.Random(1234)
     params = BGNParams(key_bits=KEY_BITS, msg_space=MSG_SPACE)
     pk, sk = params.keygen(rng=random.Random(1234))
-    rng = random.Random(5678)   # independent stream: retries must not
-    keygen_s = time.time() - t0  # desync the data rng
+    rng = random.Random(5678)   # data stream, independent of the key's
+    keygen_s = time.time() - t0
     log(f"keygen({KEY_BITS}): {keygen_s:.1f}s "
         f"(l={pk.l}, L={pk.dev.ctx.L} limbs)")
     t0 = time.time()
@@ -392,8 +394,8 @@ def main():
         section("poly_batched",
                 lambda: bench_poly_batched(pk, sk, tables, rng,
                                            max(2, args.iters // 2)))
-        # degree-3 variant (value 7.0 -> balanced digits [1,-1,1]): the
-        # 9-pairings-per-poly shape of VERDICT r4 task 1
+        # degree-3 variant (value 7.0 -> balanced digits [1,-1,1]): nine
+        # pairings per polynomial product
         section("poly_batched_d3",
                 lambda: bench_poly_batched(pk, sk, tables, rng,
                                            max(2, args.iters // 2),

@@ -10,9 +10,9 @@ Two scaling axes (SURVEY.md §2.3 / §5):
   - Giant-step sharding (the SP/CP analog): the BSGS lookup loop scales as
     sqrt(msg_space); for large message spaces the i-range i in [0, bound]
     is partitioned across devices under shard_map.  Each device starts its
-    chunk at csk * gamma_inv^(device*chunk) (the per-device offsets are
-    precomputed OUTSIDE shard_map and arrive pre-sharded along 'data', so
-    no in-shard ladder is needed), scans its slice against the replicated
+    chunk at csk * gamma_inv^(device*chunk) (the ndev offsets are exact
+    host arithmetic and arrive pre-sharded along 'data', so no device
+    ladder or inversion is needed for them), scans its slice against the replicated
     baby-step table, and the first hit is combined with one pmin over the
     mesh axis -- all hits for a given csk encode the same m, so min is
     exact first-hit semantics (gsbs.go:98).
@@ -34,11 +34,13 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from .. import hostmath as hm
 from ..fieldcore import limbs as lb
 from ..ops import bsgs as bsgs_mod
 from ..ops import curve as cv
 from ..ops import fp2
 from ..ops.curve import AffinePoint, JacPoint
+from ..utils import convert
 from .mesh import DATA_AXIS, replicate, shard_ciphertext
 
 _NOT_FOUND = jnp.int32(2 ** 31 - 1)
@@ -81,8 +83,31 @@ def _device_chunk(bound: int, ndev: int) -> int:
     return -(-(bound + 1) // ndev)
 
 
-def _chunk_bits(chunk: int):
-    return jnp.asarray(lb.int_to_bits(chunk, max(chunk.bit_length(), 1)))
+def _g1_offsets(ctx, gamma_inv: AffinePoint, chunk: int, ndev: int):
+    """(d*chunk)*gamma_inv, d = 0..ndev-1, in host bignum arithmetic ->
+    affine Montgomery x, y [ndev, L] and inf [ndev, 1] (d = 0: identity)."""
+    p, _ = convert._host_mod(ctx)
+    L = ctx.L
+    (g,) = convert.affine_to_host(ctx, AffinePoint(
+        np.asarray(gamma_inv.x).reshape(L, 1),
+        np.asarray(gamma_inv.y).reshape(L, 1),
+        np.asarray(gamma_inv.inf).reshape(1)))
+    pts = [hm.ec_mul(d * chunk, g, p) for d in range(ndev)]
+    xs = convert._to_mont_limbs(ctx, [0 if P is None else P[0] for P in pts])
+    ys = convert._to_mont_limbs(ctx, [0 if P is None else P[1] for P in pts])
+    inf = np.array([[P is None] for P in pts], dtype=np.uint32)
+    return xs.T, ys.T, inf
+
+
+def _gt_offsets(ctx, gamma_inv, chunk: int, ndev: int):
+    """gamma_inv^(d*chunk), d = 0..ndev-1, in host bignum arithmetic ->
+    Montgomery fp2 [ndev, 2, L]."""
+    p, _ = convert._host_mod(ctx)
+    (g,) = convert.fp2_to_host(ctx, np.asarray(gamma_inv).reshape(2, ctx.L, 1))
+    zs = [hm.fp2_pow(g, d * chunk, p) for d in range(ndev)]
+    return np.stack([convert._to_mont_limbs(ctx, [z[0] for z in zs]).T,
+                     convert._to_mont_limbs(ctx, [z[1] for z in zs]).T],
+                    axis=1)
 
 
 def _encode_candidates(hits, vals, d, chunk: int, bound: int, batch_ndim):
@@ -117,8 +142,9 @@ def _shard_offsets(offs, mesh):
 
 
 @partial(jax.jit, static_argnames=("mesh", "bound"))
-def _bsgs_gt_sharded(ctx, table, gamma_inv, csk, mesh, bound: int):
-    """Giant-step-sharded GT lookup; csk [2, L, *batch] already = c^q1.
+def _bsgs_gt_sharded(ctx, table, gamma_inv, offs, csk, mesh, bound: int):
+    """Giant-step-sharded GT lookup; csk [2, L, *batch] already = c^q1,
+    offs = _gt_offsets [ndev, 2, L].
 
     Positive and negative (conjugate: GT is unitary) lanes share the scan.
     Returns best [2, *batch]: candidate m per lane or NOT_FOUND."""
@@ -126,17 +152,7 @@ def _bsgs_gt_sharded(ctx, table, gamma_inv, csk, mesh, bound: int):
     chunk = _device_chunk(bound, ndev)
     L = ctx.L
     batch_shape = csk.shape[2:]
-
-    # per-device chunk-start offsets (gamma_inv^chunk)^d, d = 0..ndev-1,
-    # computed once at batch shape () and sharded so each device reads its
-    # own row inside shard_map
-    gi_chunk = fp2.pow_bits(ctx, gamma_inv, _chunk_bits(chunk))
-
-    def off_step(z, _):
-        return fp2.mul(ctx, z, gi_chunk), z
-
-    _, offs = jax.lax.scan(off_step, fp2.one(ctx, ()), None, length=ndev)
-    offs = _shard_offsets(offs, mesh)              # [ndev, 2, L]
+    offs = _shard_offsets(offs, mesh)              # each device: its row
 
     neg_csk = fp2.conj(ctx, csk)                   # GT inverse = conjugate
     both = jnp.stack([csk, neg_csk], axis=2)       # [2, L, 2, *batch]
@@ -168,9 +184,10 @@ def _bsgs_gt_sharded(ctx, table, gamma_inv, csk, mesh, bound: int):
 
 
 @partial(jax.jit, static_argnames=("mesh", "bound"))
-def _bsgs_g1_sharded(ctx, table, gamma_inv: AffinePoint, csk: JacPoint,
+def _bsgs_g1_sharded(ctx, table, gamma_inv: AffinePoint, offs, csk: JacPoint,
                      mesh, bound: int):
-    """Giant-step-sharded G1 lookup; csk = C^q1 (Jacobian [*, L, *batch]).
+    """Giant-step-sharded G1 lookup; csk = C^q1 (Jacobian [*, L, *batch]),
+    offs = _g1_offsets (x, y, inf).
 
     Same structure as the GT variant: pos/neg lanes stacked, per-device
     offsets presharded, one scan of complete mixed additions, candidates
@@ -179,23 +196,7 @@ def _bsgs_g1_sharded(ctx, table, gamma_inv: AffinePoint, csk: JacPoint,
     chunk = _device_chunk(bound, ndev)
     L = ctx.L
     batch_shape = csk.Z.shape[1:]
-
-    # (gamma_inv^chunk)^d offsets at batch shape (), normalized to affine
-    gi_chunk = cv.normalize(
-        ctx, cv.scalar_mul(ctx, gamma_inv, _chunk_bits(chunk)))
-
-    def off_step(v, _):
-        return cv.madd(ctx, v, gi_chunk), v
-
-    v0 = cv.jac_infinity(ctx, ())
-    _, offs_jac = jax.lax.scan(off_step, v0, None, length=ndev)
-    # normalize the ndev offsets in one inversion -> affine [L, ndev]
-    offs = cv.normalize(ctx, JacPoint(
-        jnp.moveaxis(offs_jac.X, 0, 1), jnp.moveaxis(offs_jac.Y, 0, 1),
-        jnp.moveaxis(offs_jac.Z, 0, 1)))
-    offs_x = _shard_offsets(jnp.moveaxis(offs.x, 1, 0), mesh)  # [ndev, L]
-    offs_y = _shard_offsets(jnp.moveaxis(offs.y, 1, 0), mesh)
-    offs_inf = _shard_offsets(offs.inf.reshape(-1, 1), mesh)   # [ndev, 1]
+    offs_x, offs_y, offs_inf = (_shard_offsets(o, mesh) for o in offs)
 
     from ..fieldcore import montgomery as mg
     neg_csk = JacPoint(csk.X, mg.mod_neg(ctx, csk.Y), csk.Z)
@@ -248,7 +249,7 @@ def _bsgs_g1_sharded(ctx, table, gamma_inv: AffinePoint, csk: JacPoint,
 
 
 # ---------------------------------------------------------------------------
-# RNS-domain giant-step-sharded scans (VERDICT r3 item 4)
+# RNS-domain giant-step-sharded scans
 # ---------------------------------------------------------------------------
 # Same sharding structure as the limb variants above, but the per-device
 # chains run in the RNS domain of ops/bsgs.py's single-device scans
@@ -266,11 +267,11 @@ def _bsgs_g1_sharded(ctx, table, gamma_inv: AffinePoint, csk: JacPoint,
 
 
 @partial(jax.jit, static_argnames=("mesh", "bound"))
-def _bsgs_g1_rns_sharded(ctx, rns, table, gamma_inv, Xr, Yr, Zr, base_inf,
-                         mesh, bound: int):
+def _bsgs_g1_rns_sharded(ctx, rns, table, gamma_inv, offs, Xr, Yr, Zr,
+                         base_inf, mesh, bound: int):
     """RNS giant-step-sharded G1 scan; Xr/Yr/Zr raw residues [2k, B] (the
-    output of rns_pairing.scalar_mul_rns(raw=True)).  Returns
-    (best [2, B], is_zero [B])."""
+    output of rns_pairing.scalar_mul_rns(raw=True)), offs = _g1_offsets.
+    Returns (best [2, B], is_zero [B])."""
     from ..fieldcore import rns as rn
     from ..ops import rns_pairing as rp
 
@@ -289,22 +290,7 @@ def _bsgs_g1_rns_sharded(ctx, rns, table, gamma_inv, Xr, Yr, Zr, base_inf,
     Y0 = jnp.concatenate([Yr, negY], axis=-1)
     Z0 = jnp.concatenate([Zr, Zr], axis=-1)
 
-    # per-device offsets (limb domain at batch ~(): cheap), as in the
-    # limb-domain variant
-    gi_chunk = cv.normalize(
-        ctx, cv.scalar_mul(ctx, gamma_inv, _chunk_bits(chunk)))
-
-    def off_step(v, _):
-        return cv.madd(ctx, v, gi_chunk), v
-
-    v0 = cv.jac_infinity(ctx, ())
-    _, offs_jac = jax.lax.scan(off_step, v0, None, length=ndev)
-    offs = cv.normalize(ctx, JacPoint(
-        jnp.moveaxis(offs_jac.X, 0, 1), jnp.moveaxis(offs_jac.Y, 0, 1),
-        jnp.moveaxis(offs_jac.Z, 0, 1)))
-    offs_x = _shard_offsets(jnp.moveaxis(offs.x, 1, 0), mesh)  # [ndev, L]
-    offs_y = _shard_offsets(jnp.moveaxis(offs.y, 1, 0), mesh)
-    offs_inf = _shard_offsets(offs.inf.reshape(-1, 1), mesh)   # [ndev, 1]
+    offs_x, offs_y, offs_inf = (_shard_offsets(o, mesh) for o in offs)
 
     gx = rn.to_rns_mont(rns, gamma_inv.x.reshape(L, 1))
     gy = rn.to_rns_mont(rns, gamma_inv.y.reshape(L, 1))
@@ -381,11 +367,11 @@ def _bsgs_g1_rns_sharded(ctx, rns, table, gamma_inv, Xr, Yr, Zr, base_inf,
 
 
 @partial(jax.jit, static_argnames=("mesh", "bound"))
-def _bsgs_gt_rns_sharded(ctx, rns, table, gamma_inv, zr, zi, mesh,
+def _bsgs_gt_rns_sharded(ctx, rns, table, gamma_inv, offs, zr, zi, mesh,
                          bound: int):
     """RNS giant-step-sharded GT scan; zr/zi raw residues [2k, B] (the
-    output of rns_pairing.fp2_pow_rns(raw=True), bound 9).  Returns
-    (best [2, B], is_zero [B])."""
+    output of rns_pairing.fp2_pow_rns(raw=True), bound 9), offs =
+    _gt_offsets.  Returns (best [2, B], is_zero [B])."""
     from ..fieldcore import rns as rn
     from ..ops import rns_pairing as rp
 
@@ -401,13 +387,6 @@ def _bsgs_gt_rns_sharded(ctx, rns, table, gamma_inv, zr, zi, mesh,
     R0 = jnp.concatenate([zr, zr], axis=-1)            # [2k, 2B]
     I0 = jnp.concatenate([zi, negI], axis=-1)
 
-    # per-device offsets (gamma_inv^chunk)^d in the limb domain
-    gi_chunk = fp2.pow_bits(ctx, gamma_inv, _chunk_bits(chunk))
-
-    def off_step(z, _):
-        return fp2.mul(ctx, z, gi_chunk), z
-
-    _, offs = jax.lax.scan(off_step, fp2.one(ctx, ()), None, length=ndev)
     offs = _shard_offsets(offs, mesh)                  # [ndev, 2, L]
 
     gr = rn.to_rns_mont(rns, gamma_inv[0].reshape(L, 1))
@@ -468,6 +447,9 @@ def decrypt_gt_sharded(pk, sk, tables, ct, mesh):
 
     ctx = pk.dev.ctx
     batch_shape = ct.data.shape[2:]
+    ndev = mesh.shape[DATA_AXIS]
+    offs = _gt_offsets(ctx, tables.gamma_inv_gt,
+                       _device_chunk(tables.bound, ndev), ndev)
     if pairing_mod.use_rns(pk.dev.rns):
         from ..ops import rns_pairing
         digits = getattr(sk, "q1_naf", None)
@@ -475,14 +457,14 @@ def decrypt_gt_sharded(pk, sk, tables, ct, mesh):
         zr, zi = rns_pairing.fp2_pow_rns(ctx, pk.dev.rns, ct.data, digits,
                                          unitary=True, raw=True)
         best, is_zero = _bsgs_gt_rns_sharded(
-            ctx, pk.dev.rns, tables.table_gt, tables.gamma_inv_gt,
+            ctx, pk.dev.rns, tables.table_gt, tables.gamma_inv_gt, offs,
             zr.v, zi.v, mesh, tables.bound)
         m, found = _combine_lanes(best, is_zero)
         m = m.reshape(batch_shape)
         found = found.reshape(batch_shape)
         return np.asarray(m, dtype=np.int64), np.asarray(found)
     csk = _csk_gt(pk.dev, sk.q1_bits, ct.data, getattr(sk, "q1_naf", None))
-    best = _bsgs_gt_sharded(ctx, tables.table_gt, tables.gamma_inv_gt,
+    best = _bsgs_gt_sharded(ctx, tables.table_gt, tables.gamma_inv_gt, offs,
                             csk, mesh, tables.bound)
     is_zero = fp2.is_one(ctx, csk).astype(bool)
     m, found = _combine_lanes(best, is_zero)
@@ -496,6 +478,9 @@ def decrypt_g1_sharded(pk, sk, tables, ct, mesh):
     from ..ops import pairing as pairing_mod
 
     ctx = pk.dev.ctx
+    ndev = mesh.shape[DATA_AXIS]
+    offs = _g1_offsets(ctx, tables.gamma_inv_g1,
+                       _device_chunk(tables.bound, ndev), ndev)
     if pairing_mod.use_rns(pk.dev.rns):
         from ..ops import rns_pairing
         digits = getattr(sk, "q1_naf", None)
@@ -504,14 +489,14 @@ def decrypt_g1_sharded(pk, sk, tables, ct, mesh):
         Xr, Yr, Zr = rns_pairing.scalar_mul_rns(ctx, pk.dev.rns, ct.data,
                                                 digits, raw=True)
         best, is_zero = _bsgs_g1_rns_sharded(
-            ctx, pk.dev.rns, tables.table_g1, tables.gamma_inv_g1,
+            ctx, pk.dev.rns, tables.table_g1, tables.gamma_inv_g1, offs,
             Xr.v, Yr.v, Zr.v, ct.data.inf.reshape(-1), mesh, tables.bound)
         m, found = _combine_lanes(best, is_zero)
         m = m.reshape(batch_shape)
         found = found.reshape(batch_shape)
         return np.asarray(m, dtype=np.int64), np.asarray(found)
     csk = _csk_g1(pk.dev, sk.q1_bits, ct.data, getattr(sk, "q1_naf", None))
-    best = _bsgs_g1_sharded(ctx, tables.table_g1, tables.gamma_inv_g1,
+    best = _bsgs_g1_sharded(ctx, tables.table_g1, tables.gamma_inv_g1, offs,
                             csk, mesh, tables.bound)
     is_zero = lb.is_zero(csk.Z).astype(bool)
     m, found = _combine_lanes(best, is_zero)

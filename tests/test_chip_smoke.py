@@ -118,9 +118,16 @@ def test_smoke_main_path(rns_forced, shared_keypair64, shared_tables64):
 
 
 def test_smoke_four_devices(rns_forced, shared_keypair64, shared_tables64):
-    """The --four phase on 4 of the 8 virtual CPU devices."""
+    """The --four phase on 4 of the 8 virtual CPU devices; the closing
+    line counts the cards used, not the 8 visible."""
     pk, sk = shared_keypair64
     cs.four_cards(pk, sk, shared_tables64, 8, 2, random.Random(4))
+    assert len(jax.devices()) == 8
+    for n in (1, 4):
+        line = cs.ok_line(jax.devices()[:n])
+        assert line == {"ok": True, "device": {
+            "platform": "cpu", "kind": jax.devices()[0].device_kind,
+            "count": n}}
 
 
 @pytest.mark.gpu
